@@ -2,33 +2,22 @@
 """End-to-end benchmark: input reads genotyped per second on a simulated
 multi-locus panel (recruit -> candidate align -> solve), on one chip.
 
-Prints ONE JSON line: {"metric", "value", "unit", "vs_baseline", "scheme",
-"extra"}.
+Prints ONE JSON line: {"metric", "value", "unit", "scheme", "extra"}.
 
-This is the HONEST pipeline metric (VERDICT round-1 "what's weak" #1/#2):
-it times the same code path the `genotype` command runs — streaming
+It times the same code path the `genotype` command runs — streaming
 recruitment over every input read, panel-batched device alignment
 (model/locs.py:build_all_alignments_panel), dense tensor build, and the
-multi-stage device solver — not an isolated kernel.  Since round 5 the
+multi-stage device solver — not an isolated kernel.  The
 solver runs the REFERENCE-DEFAULT scheme (greedy:i=5k,a=1 +
 anneal:i=20,a=20 with 20k anneal + 10k plateau steps —
 solvers/solve.py:Scheme.default, reference solve.rs:211-229), i.e. the
-same work the CLI does by default (VERDICT r4 weak item 1).  "extra"
-carries a long-read e2e metric (BASELINE config 4) and the old reduced
-scheme as a secondary line.
+same work the CLI does by default.  "extra" carries a long-read e2e
+metric (BASELINE config 4) and the reduced scheme as a secondary line;
+a failure of either fails the run.
 
-vs_baseline: round-1's measured pipeline rate was 22.4k input reads/s
-= 11.2k input pairs/s (BENCH_NOTES.md; host-bound recruitment +
-per-read Python post-processing).  This is a ROUND-OVER-ROUND
-multiplier against this repo's own round 1 — NOT a measured ratio to
-the reference binary, which cannot run in this environment (no Rust
-toolchain/dataset; BASELINE.md).  Round 1 benched the lighter
-anneal:i=8,a=8,n=3000,p=2000 scheme, so the multiplier now UNDERSTATES
-the true round-over-round speedup.
-
-Run `python bench.py --kernel` for the raw aligner-kernel metric
-(1.23 M reads aligned/s/chip in BENCH_r01), `--light` for the reduced
-scheme only, `--longread` for the long-read panel only.
+Run `python bench.py --kernel` for the raw aligner-kernel metric (through
+the same dispatch as the pipeline), `--light` for the reduced scheme
+only, `--longread` for the long-read panel only.
 """
 import json
 import sys
@@ -36,8 +25,6 @@ import time
 
 import numpy as np
 
-ROUND1_E2E_PAIRS_PER_SEC = 11_200.0
-KERNEL_BASELINE_READS_PER_SEC = 10_000.0
 DEFAULT_SCHEME_STR = "greedy:i=5k,a=1 + anneal:i=20,a=20 (reference default)"
 
 
@@ -157,8 +144,7 @@ def bench_e2e(n_loci=4, n_haps=6, locus_len=4000, depth=15.0,
     _dt, calls = one_pass(1)                 # warmup: compiles
     truth = [tuple(sorted(l.true_genotype)) for l in loci]
     acc = sum(c == t for c, t in zip(calls, truth))
-    # Best of 3 warm passes: the shared chip's run-to-run variance is
-    # ~±35% (BENCH_NOTES); the best pass is the least-contended estimate.
+    # Best of 3 warm passes.
     dt = min(one_pass(seed)[0] for seed in (2, 3, 4))
     reads_per_sec = total_pairs / dt
     print(f"panel={n_loci}x{n_haps}hap pairs={total_pairs} warm_wall={dt:.2f}s"
@@ -168,7 +154,6 @@ def bench_e2e(n_loci=4, n_haps=6, locus_len=4000, depth=15.0,
         "metric": "e2e_reads_genotyped_per_sec_panel",
         "value": round(float(reads_per_sec), 1),
         "unit": "read pairs/s",
-        "vs_baseline": round(reads_per_sec / ROUND1_E2E_PAIRS_PER_SEC, 3),
         "scheme": scheme_str,
         "exact": f"{acc}/{n_loci}",
     }
@@ -177,9 +162,8 @@ def bench_e2e(n_loci=4, n_haps=6, locus_len=4000, depth=15.0,
 def bench_longread(n_loci=3, n_haps=4, locus_len=16384, depth=10.0):
     """Long-read (ONT-like) end-to-end panel: device Kadane recruitment
     over every input read (ops/recruit.py long path, recruit.rs:940-964),
-    row-streamed any-L banded alignment (ops/align_pallas.py), and the
-    default solver scheme.  Metric: input bases genotyped per second
-    (BASELINE config 4 — first long-read perf number, VERDICT r4 item 3)."""
+    banded alignment, and the default solver scheme.  Metric: input bases
+    genotyped per second (BASELINE config 4)."""
     from locityper_tpu import sim
     from locityper_tpu.bg import BgDistr, SequencingInfo, Technology
     from locityper_tpu.bg.depth import ReadDepth
@@ -273,7 +257,8 @@ def bench_longread(n_loci=3, n_haps=4, locus_len=16384, depth=10.0):
 
 
 def bench_kernel():
-    """Raw banded-ML-aligner kernel throughput (BENCH_r01 methodology)."""
+    """Raw banded-ML-aligner throughput through ops/align.align_batch_auto
+    (the kernel the pipeline's route selects)."""
     import jax
     import jax.numpy as jnp
     from locityper_tpu.ops import align as A
@@ -299,14 +284,8 @@ def bench_kernel():
     inputs = (jax.device_put(reads), jax.device_put(lens),
               jax.device_put(wins))
 
-    try:
-        from locityper_tpu.ops.align_pallas import align_batch_pallas
-
-        def run(r, l, w):
-            return align_batch_pallas(r, l, w, score_vec, band=band, tile=128)
-    except Exception:
-        def run(r, l, w):
-            return A.align_batch(r, l, w, score_vec, band=band)
+    def run(r, l, w):
+        return A.align_batch_auto(r, l, w, score_vec, band=band)
 
     N_CHAIN = 32
 
@@ -327,10 +306,9 @@ def bench_kernel():
         best = dt if best is None else min(best, dt)
     rps = N_CHAIN * batch / best
     return {
-        "metric": "reads_aligned_per_sec_per_chip",
+        "metric": "reads_aligned_per_sec",
         "value": round(float(rps), 1),
         "unit": "reads/s",
-        "vs_baseline": round(rps / KERNEL_BASELINE_READS_PER_SEC, 3),
     }
 
 
@@ -346,44 +324,14 @@ def main():
     elif "--longread" in sys.argv:
         print(json.dumps(bench_longread()))
     else:
-        # Primary: reference-default solver scheme (VERDICT r4 item 2).
-        t_primary = time.perf_counter()
+        # Primary: reference-default solver scheme.
         res = bench_e2e(scheme_kind="default")
-        t_primary = time.perf_counter() - t_primary
-        extra = {}
-        try:
-            lr = bench_longread()
-            extra["longread_bp_per_sec"] = lr["value"]
-            extra["longread_exact"] = lr["exact"]
-        except Exception as exc:   # the primary metric must still print
-            print(f"longread bench failed: {exc!r}", file=sys.stderr)
-        if t_primary < 300:
-            # Secondary: the reduced scheme (r1-r4 primary).  Reported
-            # because round 5 demonstrated call-equivalence on the hard
-            # panels (identical calls light/default/tuned on the 200-hap
-            # HLA panel; 100/100 on the 100-locus panel — BENCH_NOTES).
-            # Skipped when the primary ran cold/congested (compiles would
-            # double the driver's bench wall).
-            try:
-                lt = bench_e2e(scheme_kind="light")
-                extra["light_scheme_pairs_per_sec"] = lt["value"]
-                extra["light_scheme_exact"] = lt["exact"]
-            except Exception as exc:
-                print(f"light bench failed: {exc!r}", file=sys.stderr)
-        try:
-            # HLA-scale panel measured on chip by extra/hla_scale.py
-            # (200-hap loci, full default scheme) — too long to rerun
-            # inside the driver bench; attach the stored result.
-            import os
-            p = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                             "HLA_SCALE.json")
-            if os.path.exists(p):
-                with open(p) as f:
-                    extra["hla_scale"] = json.load(f)
-        except Exception:
-            pass
-        if extra:
-            res["extra"] = extra
+        lr = bench_longread()
+        lt = bench_e2e(scheme_kind="light")
+        res["extra"] = dict(
+            longread_bp_per_sec=lr["value"], longread_exact=lr["exact"],
+            light_scheme_pairs_per_sec=lt["value"],
+            light_scheme_exact=lt["exact"])
         print(json.dumps(res))
 
 

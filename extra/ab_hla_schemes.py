@@ -1,8 +1,8 @@
 """Same-session interleaved A/B at HLA scale: reference-default solver
-scheme vs the TPU-tuned scheme (stage-1 polish 8000->3000 steps, stage-2
+scheme vs a tuned scheme (stage-1 polish 8000->3000 steps, stage-2
 seeded short anneal `init=prev`).  Reports per-scheme walls AND asserts
 call equality — the evidence required to offer the tuned scheme as a
-documented option (VERDICT r4 weak item 1 / next-step 4).
+documented option.
 """
 import sys
 import time

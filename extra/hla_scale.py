@@ -1,6 +1,6 @@
 #!/usr/bin/env python
 """HLA-scale validation: loci with hundreds of haplotypes through the FULL
-reference-default solver scheme, end to end (VERDICT r4 item 1).
+reference-default solver scheme, end to end.
 
 Builds N loci whose panels mirror HLA structure (clusters of
 near-identical alleles at 0.1-0.5% divergence inside a few distant allele
@@ -182,16 +182,9 @@ def main():
         wall_s=round(best, 2), s_per_locus=round(best / args.n_loci, 2),
         pairs=len(names), pairs_per_sec=round(len(names) / best, 1),
         exact=f"{n_exact}/{args.n_loci}", peak_rss_mb=round(rss_mb))
+    from locityper_tpu.ops.device import kernel_route
+    summary["kernel_route"] = kernel_route()
     print(json.dumps(summary))
-    # Persist for bench.py to attach to the round's BENCH entry (running
-    # the full HLA panel inside the driver's bench would risk its
-    # timeout; this keeps the at-scale number visible in BENCH_r*.json).
-    import jax
-    if jax.default_backend() != "cpu" and args.scheme == "default" \
-            and args.n_haps >= 100 and args.n_loci >= 5:
-        with open(Path(__file__).resolve().parent.parent
-                  / "HLA_SCALE.json", "w") as f:
-            json.dump(summary, f)
     return 0 if n_exact == args.n_loci else 1
 
 

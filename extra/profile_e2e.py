@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Phase-by-phase wall-time profile of the per-locus pipeline on simulated
 data (host paths on CPU; device kernels via the XLA fallback).  Used to
-attack the end-to-end throughput gap (VERDICT r1 item 1)."""
+attack the end-to-end throughput gap."""
 import cProfile
 import io
 import pstats

@@ -4,9 +4,9 @@ Times the three sharded production steps — pair recruitment
 (sharded_recruit_pairs), alignment (build_all_alignments(mesh=...)) and
 solving (solve_locus(mesh=...)) — at 1/2/4/8 virtual XLA CPU devices.
 Wall-clock on CPU is only indicative (one physical socket is shared by
-all virtual devices; true scaling needs real chips over ICI), but the
+all virtual devices; true scaling needs real devices), but the
 curve validates that the sharded paths partition work and that overheads
-do not swamp the kernels.  Results are recorded in BENCH_NOTES.md.
+do not swamp the kernels.
 
 Usage: python extra/scaling_cpu.py            # prints one line per n
 """

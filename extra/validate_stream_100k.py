@@ -76,4 +76,4 @@ print(f"called {called} truth {locus.true_genotype} "
       f"quality {res.quality:.1f} "
       f"[{total_bp / (t2 - t0):.0f} input bp/s e2e]")
 assert called == locus.true_genotype
-print("100 kb STREAMING PIPELINE: exact genotype on TPU")
+print("100 kb STREAMING PIPELINE: exact genotype on device")

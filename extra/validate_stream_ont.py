@@ -41,4 +41,4 @@ called = tuple(sorted(int(x) for x in result.genotypes[0]))
 print(f"called {called} truth {locus.true_genotype} in {dt:.0f}s "
       f"quality {result.quality:.1f}")
 assert called == locus.true_genotype
-print("ONT 12kb STREAMING PIPELINE: exact genotype on TPU")
+print("ONT 12kb STREAMING PIPELINE: exact genotype on device")

@@ -1,9 +1,9 @@
-"""locityper-tpu: a TPU-native targeted genotyper.
+"""locityper-tpu: a targeted genotyper in JAX for NVIDIA GPUs.
 
 A from-scratch reimplementation of the Locityper method (Prodanov et al.,
-Nature Genetics 2025) designed for TPU hardware: JAX/XLA/Pallas compute path,
+Nature Genetics 2025): JAX/XLA compute path with Pallas kernels for the GPU,
 dense batched tensors instead of per-read pointer chasing, massively parallel
-stochastic solvers, and `jax.sharding` meshes for multi-chip scaling.
+stochastic solvers, and `jax.sharding` meshes for multi-device scaling.
 
 The behavioral spec is the reference Rust implementation (see SURVEY.md);
 file:line citations in docstrings point into that reference tree.

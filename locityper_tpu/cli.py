@@ -6,35 +6,46 @@ Subcommands: add, preproc, genotype, recruit, align, prune, paf-vcf.
 from __future__ import annotations
 
 import argparse
+import os
 import sys
+from pathlib import Path
 
 from .utils.logging import setup_logging
 
 
+#: Compile cache used when JAX_COMPILATION_CACHE_DIR is not set: one fixed
+#: directory inside the checkout (git-ignored), so every run hits it.
+DEFAULT_CACHE_DIR = Path(__file__).resolve().parent.parent / ".jax_cache"
+
+
+def compile_cache_dir() -> Path:
+    """JAX_COMPILATION_CACHE_DIR when set, else DEFAULT_CACHE_DIR."""
+    env = os.environ.get("JAX_COMPILATION_CACHE_DIR")
+    return Path(env) if env else DEFAULT_CACHE_DIR
+
+
 def _enable_compile_cache():
-    """Persistent XLA compilation cache: TPU kernel compiles (which can take
-    minutes through remote-compile setups) are reused across runs.
+    """Persistent XLA compilation cache for GPU runs.  When
+    JAX_COMPILATION_CACHE_DIR is set, JAX already uses it and nothing is
+    changed here; otherwise the cache goes to DEFAULT_CACHE_DIR.
 
     CPU backends are excluded: XLA's CPU cache key does not fingerprint
-    the host machine type, so entries compiled on a different VM replay
-    with 'machine type ... doesn't match' errors (seen round 5) — and CPU
+    the host machine type, so entries compiled on a different machine
+    replay with 'machine type ... doesn't match' errors — and CPU
     compiles are fast anyway."""
-    import os
-    try:
-        import jax
-        # Read the pinned platform WITHOUT initializing the backend
-        # (jax.default_backend() here would break the later
-        # jax.distributed.initialize in multi-process runs).
-        platforms = jax.config.jax_platforms or ""
-        if platforms.split(",")[0] == "cpu":
-            return
-        cache = os.environ.get("LOCITYPER_JAX_CACHE",
-                               os.path.expanduser("~/.cache/locityper_jax"))
-        os.makedirs(cache, exist_ok=True)
-        jax.config.update("jax_compilation_cache_dir", cache)
+    import jax
+    # Read the pinned platform WITHOUT initializing the backend
+    # (jax.default_backend() here would break the later
+    # jax.distributed.initialize in multi-process runs).
+    platforms = jax.config.jax_platforms or ""
+    if platforms.split(",")[0] == "cpu":
+        return None
+    cache = compile_cache_dir()
+    if not os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+        cache.mkdir(parents=True, exist_ok=True)
+        jax.config.update("jax_compilation_cache_dir", str(cache))
         jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:
-        pass
+    return cache
 
 
 def main(argv=None):
@@ -44,7 +55,7 @@ def main(argv=None):
     tune_host_allocator()
     parser = argparse.ArgumentParser(
         prog="locityper-tpu",
-        description="TPU-native targeted genotyper (Locityper method)")
+        description="Targeted genotyper (Locityper method) on JAX")
     sub = parser.add_subparsers(dest="command", required=True)
 
     from .commands import (add, preproc, genotype, recruit, align, prune,

@@ -81,7 +81,7 @@ def run(args):
     if not single_out and len(args.output) != len(targets):
         raise SystemExit("Number of outputs must be 1 or match targets")
 
-    # Stream through the shared batched engine (device kernel on TPU,
+    # Stream through the shared batched engine (device kernel,
     # double-buffered) — the standalone command gets the same throughput
     # as the genotype pipeline, including the native-parser fast path for
     # 2-FASTQ inputs (no per-read Python).

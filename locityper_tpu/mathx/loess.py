@@ -3,7 +3,7 @@
 Tricube-weighted local polynomial fit, evaluated at user-specified output
 points.  Used by the GC-conditional read-depth model (bg/depth.rs:69-91) on
 tiny data (~hundreds of windows), so a plain vectorized numpy implementation
-is appropriate; there is nothing for the TPU to accelerate here.
+is appropriate; there is nothing for the device to accelerate here.
 """
 from __future__ import annotations
 

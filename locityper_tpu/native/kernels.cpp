@@ -37,9 +37,7 @@ void encode_dna(const uint8_t* seq, int64_t n, int8_t* out) {
 // ---------------------------------------------------------------------------
 // 4-bit base packing for device upload (ops/recruit.py pack_reads_host):
 // [n, l] int8 codes (0-4, l % 8 == 0) -> [n, l/8] uint32, little-endian
-// nibbles.  Halving the H2D bytes matters because transfers during
-// sustained kernel activity run at relay-queueing speed, not link
-// bandwidth (BENCH_NOTES round 4).
+// nibbles: half the H2D bytes of int8 codes.
 // ---------------------------------------------------------------------------
 static inline void pack_row4(const uint8_t* s, uint32_t* d, int64_t wpr) {
     for (int64_t j = 0; j < wpr; j++) {

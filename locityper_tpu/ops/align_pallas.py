@@ -1,24 +1,28 @@
-"""Pallas TPU kernel for banded ML alignment.
+"""Banded ML aligner as one Pallas kernel for the GPU (Triton route).
 
-Same contract as ops/align.align_batch (same scores, payloads, results —
-parity enforced by tests/test_align_pallas.py), but implemented as a single
-Pallas kernel: the whole DP state stays in VMEM across the row loop,
-eliminating the per-row HBM round-trips that cap the XLA lax.scan version
-at ~10k reads/s/chip (measured: ~127k reads/s, exact parity).
+Same contract as ops/align.align_batch: the same recurrence, scores and
+payloads (parity in tests/test_align_pallas.py, run in interpret mode).
+The XLA version is a `lax.scan` over read rows, which moves the whole
+[N, band] score state and its payloads through device memory on every
+row.  Here the row loop runs inside the kernel and the band state stays in
+registers:
 
-Layout (guide: /opt/skills/guides/pallas_guide.md): arrays are TRANSPOSED —
-band offsets on the sublane axis, reads on the lane axis — because Mosaic
-only allows dynamic slicing with arbitrary offsets on the second-minor
-(sublane) dimension; per-row read/haplotype character loads are sublane
-slices of [L, TB] / [L+band, TB] buffers.
+- one program aligns TB reads, one read per thread, and stops at the
+  longest of its reads;
+- the band is a Python-unrolled list of [TB] vectors, so the diagonal and
+  insertion moves are renames.  Bands wider than MAX_REG_BAND stream
+  through per-program row buffers in device memory (cached in L1/L2),
+  an unrolled chunk of cells at a time;
+- the deletion pass is an exact sequential max-plus scan over the band
+  (ties go to the later origin, as in the reference's associative scan),
+  so there is no cap on deletion runs;
+- reads and windows arrive transposed ([L, B], [L+band, B]), so one row's
+  characters for TB reads are one contiguous load.
 
-  grid = (B / TB,); each program aligns TB = 128 reads (one lane row).
-  State: [band, TB] f32 score + packed int32 payloads in VMEM/vregs:
-    pk1 = n_mism | n_ins << 16;  pk2 = n_del | n_clip << 16
-  (fields stay < 2^16, so vector adds never carry across fields).
-  Deletion max-plus prefix scan: doubling (roll, compare, select) steps on
-  the sublane axis, capped at `max_del_run` consecutive deletions
-  (longer single-gap deletions than the band never fit anyway).
+Payloads are packed two to an int32 (pk1 = n_mism | n_ins << 16,
+pk2 = n_del | n_clip << 16), which keeps the per-thread state at four
+values per band cell; fields stay below 2^16, so reads must be shorter
+than MAX_LEN.
 """
 from __future__ import annotations
 
@@ -26,380 +30,216 @@ import functools
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 NEG = -1e30
 HI = 1 << 16       # plain ints: jnp constants would be captured as tracers
 MASK16 = 0xFFFF
+#: Longest read the packed 16-bit payload fields can count.
+MAX_LEN = 1 << 16
 
 
-def _roll_sub(x, shift):
-    n = x.shape[0]
-    return pltpu.roll(x, shift % n, axis=0)
+def _cells(j0, prev, nb, ctx, scan, best):
+    """Row i of the DP over consecutive band cells j0, j0+1, ...
+
+    prev: (S, PK1, PK2, SP) lists of [TB] vectors, the previous row at
+    those cells; nb: the same four values at the cell after the last (the
+    insertion neighbour of the last cell); scan: the running deletion
+    max-plus state (run, orig, pk1, pk2, sp) carried in from the cells
+    before j0; best: (score, pk1, pk2, sp, ep) so far.  j0 is a Python int
+    or a traced scalar.  Returns (new row lists, scan, best)."""
+    (i, r_c, r_ok, clip_s, active, end_bonus, end_clip, sc, wins_ref,
+     cols) = ctx
+    m_sc, x_sc, i_sc, d_sc, _ = sc
+    S, PK1, PK2, SP = prev
+    run, orig, rp1, rp2, rsp = scan
+    b_s, b_pk1, b_pk2, b_sp, b_ep = best
+    new = ([], [], [], [])
+    n = len(S)
+    for t in range(n):
+        j = j0 + t
+        jf = j if isinstance(j, int) else j.astype(jnp.float32)
+        # Diagonal, insertion and read-head clip; the first of equal
+        # candidates wins (strict >), as in ops/align.pick.
+        h = wins_ref[i - 1 + j, cols].astype(jnp.int32)
+        sub = jnp.where(r_c == h, m_sc, x_sc)
+        sub = jnp.where((h < 4) & r_ok, sub, NEG)
+        s = S[t] + sub
+        p1 = PK1[t] + (r_c != h).astype(jnp.int32)
+        p2, sp = PK2[t], SP[t]
+        ns, n1, n2, nsp = ((S[t + 1], PK1[t + 1], PK2[t + 1], SP[t + 1])
+                           if t + 1 < n else nb)
+        ins_s = ns + i_sc
+        take = ins_s > s
+        s = jnp.where(take, ins_s, s)
+        p1 = jnp.where(take, n1 + HI, p1)
+        p2 = jnp.where(take, n2, p2)
+        sp = jnp.where(take, nsp, sp)
+        take = clip_s > s
+        s = jnp.where(take, clip_s, s)
+        p1 = jnp.where(take, 0, p1)
+        p2 = jnp.where(take, i * HI, p2)
+        sp = jnp.where(take, i + j, sp)
+        # Deletions: running max of base[j] - j*del, origin and payloads
+        # following the winner (the later origin on ties).
+        jd = jf * d_sc
+        adj = s - jd
+        take = adj >= run
+        run = jnp.where(take, adj, run)
+        orig = jnp.where(take, j, orig)
+        rp1 = jnp.where(take, p1, rp1)
+        rp2 = jnp.where(take, p2, rp2)
+        rsp = jnp.where(take, sp, rsp)
+        out = jnp.where(orig == j, s, run + jd)
+        out_p2 = rp2 + (j - orig)
+        # Best end at this row (rest of the read clipped): the first cell
+        # of the row's maximum, if it beats the best so far.
+        cand = out + end_bonus
+        better = cand > b_s
+        b_s = jnp.where(better, cand, b_s)
+        b_pk1 = jnp.where(better, rp1, b_pk1)
+        b_pk2 = jnp.where(better, out_p2 + end_clip, b_pk2)
+        b_sp = jnp.where(better, rsp, b_sp)
+        b_ep = jnp.where(better, i + j, b_ep)
+        for lst, v in zip(new, (jnp.where(active, out, NEG), rp1, out_p2,
+                                rsp)):
+            lst.append(v)
+    return (new, (run, orig, rp1, rp2, rsp),
+            (b_s, b_pk1, b_pk2, b_sp, b_ep))
 
 
-def _kernel(scores_ref, reads_ref, lens_ref, wins_ref,
+def _kernel(sc_ref, reads_ref, lens_ref, wins_ref,
             score_out, mism_out, ins_out, del_out, clip_out, sp_out, ep_out,
-            *, band: int, L: int, max_del_run: int):
-    TB = reads_ref.shape[1]
-    m_sc = scores_ref[0]
-    x_sc = scores_ref[1]
-    i_sc = scores_ref[2]
-    d_sc = scores_ref[3]
-    c_sc = scores_ref[4]
-
-    j_idx = jax.lax.broadcasted_iota(jnp.int32, (band, TB), 0)
-    j_f = j_idx.astype(jnp.float32)
-    lens = lens_ref[:]                                   # [1, TB] int32
+            *bufs, band: int, TB: int, chunk: int):
+    """bufs: none when the band stays in registers (chunk == band), else
+    four [band + 1, B] row buffers (score, pk1, pk2, start_p) that the
+    band is streamed through `chunk` cells at a time; row `band` holds
+    the out-of-band insertion neighbour."""
+    cols = pl.ds(pl.program_id(0) * TB, TB)
+    sc = tuple(sc_ref[k] for k in range(5))
+    c_sc = sc[4]
+    lens = lens_ref[cols]
     lens_f = lens.astype(jnp.float32)
+    zi = jnp.zeros((TB,), jnp.int32)
+    zf = jnp.zeros((TB,), jnp.float32)
+    scan0 = (jnp.full((TB,), -jnp.inf, jnp.float32), zi, zi, zi, zi)
+    best0 = (jnp.full((TB,), NEG, jnp.float32), zi, zi, zi, zi)
 
-    z = jnp.zeros((band, TB), jnp.int32)
-    state = dict(
-        prev=jnp.zeros((band, TB), jnp.float32),
-        pk1=z, pk2=z, start_p=j_idx,
-        best_s=jnp.full((1, TB), NEG, jnp.float32),
-        best_pk1=jnp.zeros((1, TB), jnp.int32),
-        best_pk2=jnp.zeros((1, TB), jnp.int32),
-        best_sp=jnp.zeros((1, TB), jnp.int32),
-        best_ep=jnp.zeros((1, TB), jnp.int32),
-    )
-
-    def row(i, st):
-        r_c = reads_ref[pl.ds(i - 1, 1), :]              # [1, TB]
-        h_c = wins_ref[pl.ds(i - 1, band), :]            # [band, TB]
-        h_valid = h_c < 4
-        sub = jnp.where(r_c == h_c, m_sc, x_sc)
-        sub = jnp.where(h_valid & (r_c < 4), sub, NEG)
-        is_mism = (r_c != h_c).astype(jnp.int32)
-
-        prev = st["prev"]
-        diag_s = prev + sub
-        d_pk1 = st["pk1"] + is_mism                       # n_mism in low bits
-
-        last = j_idx == band - 1
-        ins_s = jnp.where(last, NEG, _roll_sub(prev, -1) + i_sc)
-        i_pk1 = _roll_sub(st["pk1"], -1) + HI             # n_ins in high bits
-        i_pk2 = _roll_sub(st["pk2"], -1)
-        i_sp = _roll_sub(st["start_p"], -1)
-
+    def ctx_for(i):
+        r_c = reads_ref[i - 1, cols].astype(jnp.int32)
         i_f = i.astype(jnp.float32)
-        clip_s = jnp.full((band, TB), 1.0, jnp.float32) * (c_sc * i_f)
-
-        take_i = ins_s > diag_s
-        base_s = jnp.where(take_i, ins_s, diag_s)
-        b_pk1 = jnp.where(take_i, i_pk1, d_pk1)
-        b_pk2 = jnp.where(take_i, i_pk2, st["pk2"])
-        b_sp = jnp.where(take_i, i_sp, st["start_p"])
-        take_c = clip_s > base_s
-        base_s = jnp.where(take_c, clip_s, base_s)
-        b_pk1 = jnp.where(take_c, 0, b_pk1)
-        b_pk2 = jnp.where(take_c, i * HI, b_pk2)          # n_clip = i
-        b_sp = jnp.where(take_c, i + j_idx, b_sp)
-
-        # Deletion max-plus prefix scan (doubling, origin + packed payloads),
-        # capped at max_del_run consecutive deletions.
-        adj = base_s - j_f * d_sc
-        orig = j_idx
-        p_pk1, p_pk2, p_sp = b_pk1, b_pk2, b_sp
-        s = 1
-        while s < max_del_run:
-            sh_adj = jnp.where(j_idx < s, NEG, _roll_sub(adj, s))
-            take = sh_adj > adj
-            adj = jnp.where(take, sh_adj, adj)
-            orig = jnp.where(take, _roll_sub(orig, s), orig)
-            p_pk1 = jnp.where(take, _roll_sub(p_pk1, s), p_pk1)
-            p_pk2 = jnp.where(take, _roll_sub(p_pk2, s), p_pk2)
-            p_sp = jnp.where(take, _roll_sub(p_sp, s), p_sp)
-            s *= 2
-        no_del = orig == j_idx
-        row_s = jnp.where(no_del, base_s, adj + j_f * d_sc)
-        r_pk1 = p_pk1
-        r_pk2 = p_pk2 + (j_idx - orig)                    # n_del low bits
-        r_sp = p_sp
-
         active = i <= lens
-        end_bonus = jnp.where(active, (lens_f - i_f) * c_sc, NEG)
-        cand = row_s + end_bonus
-        cand_max = jnp.max(cand, axis=0, keepdims=True)
-        is_best = cand == cand_max
-        key = jnp.where(is_best, band - j_idx, 0)
-        pickm = (key == jnp.max(key, axis=0, keepdims=True)) & is_best
+        return (i, r_c, r_c < 4, c_sc * i_f, active,
+                jnp.where(active, (lens_f - i_f) * c_sc, NEG),
+                (lens - i) * HI, sc, wins_ref, cols)
 
-        def sel(p):
-            return jnp.sum(jnp.where(pickm, p, 0), axis=0, keepdims=True)
+    # Rows past every read of this program change nothing: stop there.
+    n_rows = jnp.max(lens)
+    if chunk == band:
+        def row(i, st):
+            prev, best = st
+            nb = (NEG, prev[1][-1], prev[2][-1], prev[3][-1])
+            new, _, best = _cells(0, prev, nb, ctx_for(i), scan0, best)
+            return new, best
 
-        better = cand_max > st["best_s"]
-        st_new = dict(st)
-        st_new["best_s"] = jnp.where(better, cand_max, st["best_s"])
-        st_new["best_pk1"] = jnp.where(better, sel(r_pk1), st["best_pk1"])
-        st_new["best_pk2"] = jnp.where(better, sel(r_pk2) + (lens - i) * HI,
-                                       st["best_pk2"])
-        st_new["best_sp"] = jnp.where(better, sel(r_sp), st["best_sp"])
-        st_new["best_ep"] = jnp.where(better, sel(i + j_idx), st["best_ep"])
+        prev0 = ([zf] * band, [zi] * band, [zi] * band,
+                 [zi + j for j in range(band)])     # row 0: start at p = j
+        _, best = jax.lax.fori_loop(1, n_rows + 1, row, (prev0, best0))
+    else:
+        bufs_init = (zf, zi, zi, None)
+        for j in range(band + 1):
+            for buf, v in zip(bufs, bufs_init):
+                buf[j, cols] = zi + j if v is None else v
+        bufs[0][band, cols] = jnp.full((TB,), NEG, jnp.float32)
 
-        st_new["prev"] = jnp.where(active, row_s, NEG)
-        st_new["pk1"] = r_pk1
-        st_new["pk2"] = r_pk2
-        st_new["start_p"] = r_sp
-        return st_new
+        def row(i, best):
+            ctx = ctx_for(i)
 
-    state = jax.lax.fori_loop(1, L + 1, row, state)
-    score_out[:] = state["best_s"]
-    mism_out[:] = state["best_pk1"] & MASK16
-    ins_out[:] = (state["best_pk1"] >> 16) & MASK16
-    del_out[:] = state["best_pk2"] & MASK16
-    clip_out[:] = (state["best_pk2"] >> 16) & MASK16
-    sp_out[:] = state["best_sp"]
-    ep_out[:] = state["best_ep"]
+            def block(c, carry):
+                scan, best = carry
+                j0 = c * chunk
+                vals = [[buf[j0 + t, cols] for t in range(chunk + 1)]
+                        for buf in bufs]
+                prev = tuple(v[:chunk] for v in vals)
+                nb = tuple(v[chunk] for v in vals)
+                new, scan, best = _cells(j0, prev, nb, ctx, scan, best)
+                for buf, lst in zip(bufs, new):
+                    for t, v in enumerate(lst):
+                        buf[j0 + t, cols] = v
+                return scan, best
 
+            _, best = jax.lax.fori_loop(0, band // chunk, block,
+                                        (scan0, best))
+            return best
 
-def _stream_kernel(scores_ref, reads_ref, lens_ref, wins_ref,
-                   score_out, mism_out, ins_out, del_out, clip_out, sp_out,
-                   ep_out,
-                   prev_ref, pk1_ref, pk2_ref, sp_ref,
-                   bs_ref, bpk1_ref, bpk2_ref, bsp_ref, bep_ref,
-                   *, band: int, BL: int, n_rb: int, max_del_run: int):
-    """Row-streamed variant: grid = (batch tiles, row blocks); per step the
-    kernel sees BL read rows and BL+band window rows (host-duplicated
-    overlap), carrying the DP state in VMEM scratch between row blocks.
-    VMEM use is O(BL + band) per tile — long reads (10-100 kb+) stream
-    through without holding the whole sequence on-chip (SURVEY.md §7
-    'long-read banded alignment with bounded memory')."""
-    TB = reads_ref.shape[1]
-    rb = pl.program_id(1)
-    m_sc = scores_ref[0]
-    x_sc = scores_ref[1]
-    i_sc = scores_ref[2]
-    d_sc = scores_ref[3]
-    c_sc = scores_ref[4]
-
-    j_idx = jax.lax.broadcasted_iota(jnp.int32, (band, TB), 0)
-    j_f = j_idx.astype(jnp.float32)
-    lens = lens_ref[:]
-    lens_f = lens.astype(jnp.float32)
-
-    @pl.when(rb == 0)
-    def _init():
-        prev_ref[:] = jnp.zeros((band, TB), jnp.float32)
-        pk1_ref[:] = jnp.zeros((band, TB), jnp.int32)
-        pk2_ref[:] = jnp.zeros((band, TB), jnp.int32)
-        sp_ref[:] = j_idx
-        bs_ref[:] = jnp.full((1, TB), NEG, jnp.float32)
-        bpk1_ref[:] = jnp.zeros((1, TB), jnp.int32)
-        bpk2_ref[:] = jnp.zeros((1, TB), jnp.int32)
-        bsp_ref[:] = jnp.zeros((1, TB), jnp.int32)
-        bep_ref[:] = jnp.zeros((1, TB), jnp.int32)
-
-    state = dict(prev=prev_ref[:], pk1=pk1_ref[:], pk2=pk2_ref[:],
-                 start_p=sp_ref[:], best_s=bs_ref[:], best_pk1=bpk1_ref[:],
-                 best_pk2=bpk2_ref[:], best_sp=bsp_ref[:], best_ep=bep_ref[:])
-
-    def row(r, st):
-        # Global row index i = rb*BL + r + 1 (1-based read position).
-        i = rb * BL + r + 1
-        r_c = reads_ref[pl.ds(r, 1), :]
-        h_c = wins_ref[0, pl.ds(r, band), :]
-        h_valid = h_c < 4
-        sub = jnp.where(r_c == h_c, m_sc, x_sc)
-        sub = jnp.where(h_valid & (r_c < 4), sub, NEG)
-        is_mism = (r_c != h_c).astype(jnp.int32)
-
-        prev = st["prev"]
-        diag_s = prev + sub
-        d_pk1 = st["pk1"] + is_mism
-
-        last = j_idx == band - 1
-        ins_s = jnp.where(last, NEG, _roll_sub(prev, -1) + i_sc)
-        i_pk1 = _roll_sub(st["pk1"], -1) + HI
-        i_pk2 = _roll_sub(st["pk2"], -1)
-        i_sp = _roll_sub(st["start_p"], -1)
-
-        i_f = i.astype(jnp.float32)
-        clip_s = jnp.full((band, TB), 1.0, jnp.float32) * (c_sc * i_f)
-
-        take_i = ins_s > diag_s
-        base_s = jnp.where(take_i, ins_s, diag_s)
-        b_pk1 = jnp.where(take_i, i_pk1, d_pk1)
-        b_pk2 = jnp.where(take_i, i_pk2, st["pk2"])
-        b_sp = jnp.where(take_i, i_sp, st["start_p"])
-        take_c = clip_s > base_s
-        base_s = jnp.where(take_c, clip_s, base_s)
-        b_pk1 = jnp.where(take_c, 0, b_pk1)
-        b_pk2 = jnp.where(take_c, i * HI, b_pk2)
-        b_sp = jnp.where(take_c, i + j_idx, b_sp)
-
-        adj = base_s - j_f * d_sc
-        orig = j_idx
-        p_pk1, p_pk2, p_sp = b_pk1, b_pk2, b_sp
-        s = 1
-        while s < max_del_run:
-            sh_adj = jnp.where(j_idx < s, NEG, _roll_sub(adj, s))
-            take = sh_adj > adj
-            adj = jnp.where(take, sh_adj, adj)
-            orig = jnp.where(take, _roll_sub(orig, s), orig)
-            p_pk1 = jnp.where(take, _roll_sub(p_pk1, s), p_pk1)
-            p_pk2 = jnp.where(take, _roll_sub(p_pk2, s), p_pk2)
-            p_sp = jnp.where(take, _roll_sub(p_sp, s), p_sp)
-            s *= 2
-        no_del = orig == j_idx
-        row_s = jnp.where(no_del, base_s, adj + j_f * d_sc)
-        r_pk1 = p_pk1
-        r_pk2 = p_pk2 + (j_idx - orig)
-        r_sp = p_sp
-
-        active = i <= lens
-        end_bonus = jnp.where(active, (lens_f - i_f) * c_sc, NEG)
-        cand = row_s + end_bonus
-        cand_max = jnp.max(cand, axis=0, keepdims=True)
-        is_best = cand == cand_max
-        key = jnp.where(is_best, band - j_idx, 0)
-        pickm = (key == jnp.max(key, axis=0, keepdims=True)) & is_best
-
-        def sel(p):
-            return jnp.sum(jnp.where(pickm, p, 0), axis=0, keepdims=True)
-
-        better = cand_max > st["best_s"]
-        st_new = dict(st)
-        st_new["best_s"] = jnp.where(better, cand_max, st["best_s"])
-        st_new["best_pk1"] = jnp.where(better, sel(r_pk1), st["best_pk1"])
-        st_new["best_pk2"] = jnp.where(better, sel(r_pk2) + (lens - i) * HI,
-                                       st["best_pk2"])
-        st_new["best_sp"] = jnp.where(better, sel(r_sp), st["best_sp"])
-        st_new["best_ep"] = jnp.where(better, sel(i + j_idx), st["best_ep"])
-        st_new["prev"] = jnp.where(active, row_s, NEG)
-        st_new["pk1"] = r_pk1
-        st_new["pk2"] = r_pk2
-        st_new["start_p"] = r_sp
-        return st_new
-
-    state = jax.lax.fori_loop(0, BL, row, state)
-    prev_ref[:] = state["prev"]
-    pk1_ref[:] = state["pk1"]
-    pk2_ref[:] = state["pk2"]
-    sp_ref[:] = state["start_p"]
-    bs_ref[:] = state["best_s"]
-    bpk1_ref[:] = state["best_pk1"]
-    bpk2_ref[:] = state["best_pk2"]
-    bsp_ref[:] = state["best_sp"]
-    bep_ref[:] = state["best_ep"]
-
-    @pl.when(rb == n_rb - 1)
-    def _emit():
-        score_out[:] = state["best_s"]
-        mism_out[:] = state["best_pk1"] & MASK16
-        ins_out[:] = (state["best_pk1"] >> 16) & MASK16
-        del_out[:] = state["best_pk2"] & MASK16
-        clip_out[:] = (state["best_pk2"] >> 16) & MASK16
-        sp_out[:] = state["best_sp"]
-        ep_out[:] = state["best_ep"]
+        best = jax.lax.fori_loop(1, n_rows + 1, row, best0)
+    b_s, b_pk1, b_pk2, b_sp, b_ep = best
+    score_out[cols] = b_s
+    mism_out[cols] = b_pk1 & MASK16
+    ins_out[cols] = (b_pk1 >> 16) & MASK16
+    del_out[cols] = b_pk2 & MASK16
+    clip_out[cols] = (b_pk2 >> 16) & MASK16
+    sp_out[cols] = b_sp
+    ep_out[cols] = b_ep
 
 
-@functools.partial(jax.jit, static_argnames=("band", "tile", "max_del_run",
-                                             "block_rows"))
-def align_batch_pallas_stream(reads, rlens, hap_wins, score_vec,
-                              band: int = 160, tile: int = 128,
-                              max_del_run: int = 32, block_rows: int = 512):
-    """Long-read variant of align_batch_pallas: streams the read rows in
-    `block_rows` chunks through a 2D grid, so VMEM holds O(block_rows+band)
-    rows per tile instead of the whole read.  Same recurrence/payloads.
-
-    Host prepares overlapping window blocks [n_rb, BL+band, TB] (the
-    ~band/BL duplication buys non-overlapping BlockSpecs)."""
-    B, L = reads.shape
-    assert B % tile == 0, f"batch {B} must be a multiple of tile {tile}"
-    BL = block_rows
-    n_rb = -(-L // BL)
-    L_pad = n_rb * BL
-    reads = jnp.pad(reads, ((0, 0), (0, L_pad - L)), constant_values=4)
-    hap_wins = jnp.pad(
-        hap_wins, ((0, 0), (0, L_pad + band - hap_wins.shape[1])),
-        constant_values=4)
-    r32 = reads.astype(jnp.int32).T                       # [L_pad, B]
-    # Overlapping window blocks: block rb covers rows [rb*BL, rb*BL+BL+band).
-    w32 = hap_wins.astype(jnp.int32).T                    # [L_pad+band, B]
-    idx = (jnp.arange(n_rb)[:, None] * BL
-           + jnp.arange(BL + band)[None, :])              # [n_rb, BL+band]
-    wblk = w32[idx]                                       # [n_rb, BL+band, B]
-    lens2 = rlens.astype(jnp.int32)[None, :]
-
-    kernel = functools.partial(_stream_kernel, band=band, BL=BL, n_rb=n_rb,
-                               max_del_run=min(max_del_run, band))
-    grid = (B // tile, n_rb)
-    out_shapes = [jax.ShapeDtypeStruct((1, B), jnp.float32)] + \
-        [jax.ShapeDtypeStruct((1, B), jnp.int32)] * 6
-    out_specs = [pl.BlockSpec((1, tile), lambda i, r: (0, i),
-                              memory_space=pltpu.VMEM)] * 7
-    res = pl.pallas_call(
-        kernel,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((5,), lambda i, r: (0,), memory_space=pltpu.SMEM),
-            pl.BlockSpec((BL, tile), lambda i, r: (r, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, tile), lambda i, r: (0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, BL + band, tile), lambda i, r: (r, 0, i),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=out_specs,
-        out_shape=out_shapes,
-        scratch_shapes=[
-            pltpu.VMEM((band, tile), jnp.float32),
-            pltpu.VMEM((band, tile), jnp.int32),
-            pltpu.VMEM((band, tile), jnp.int32),
-            pltpu.VMEM((band, tile), jnp.int32),
-            pltpu.VMEM((1, tile), jnp.float32),
-            pltpu.VMEM((1, tile), jnp.int32),
-            pltpu.VMEM((1, tile), jnp.int32),
-            pltpu.VMEM((1, tile), jnp.int32),
-            pltpu.VMEM((1, tile), jnp.int32),
-        ],
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "arbitrary"),
-            vmem_limit_bytes=100 * 1024 * 1024),
-    )(score_vec.astype(jnp.float32), r32, lens2, wblk)
-    score, mism, ins, dele, clip, sp, ep = res
-    return dict(score=score[0], n_mism=mism[0], n_ins=ins[0],
-                n_del=dele[0], n_clip=clip[0], start_p=sp[0],
-                end_p=ep[0], valid=score[0] > NEG / 2)
+#: Widest band held in registers; wider bands stream through row buffers
+#: in chunks (a fully unrolled band of 160 cells takes minutes to compile
+#: and spills anyway).
+MAX_REG_BAND = 64
 
 
-@functools.partial(jax.jit, static_argnames=("band", "tile", "max_del_run"))
+def chunk_for(band: int) -> int:
+    """Band cells per unrolled block: the whole band up to MAX_REG_BAND,
+    else the largest power of two up to 32 that divides it."""
+    if band <= MAX_REG_BAND:
+        return band
+    return next(c for c in (32, 16, 8, 4, 2, 1) if band % c == 0)
+
+
+def tile_for(band: int) -> tuple[int, int]:
+    """(reads per program, warps): one read per thread.  Wide bands hold
+    more state per thread, so they take one-warp programs (more programs
+    in flight for the small batches long reads come in)."""
+    return (64, 2) if band <= 64 else (32, 1)
+
+
+@functools.partial(jax.jit, static_argnames=("band", "interpret"))
 def align_batch_pallas(reads, rlens, hap_wins, score_vec, band: int = 48,
-                       tile: int = 128, max_del_run: int = 32):
+                       interpret: bool = False):
     """Drop-in replacement for ops.align.align_batch (same outputs).
-    max_del_run: longest run of consecutive deletions representable (rounded
-    up to a power of two internally); runs longer than the band cannot occur
-    within the window anyway."""
+    The batch is padded to a multiple of the program width."""
     B, L = reads.shape
-    assert B % tile == 0, f"batch {B} must be a multiple of tile {tile}"
-    r32 = reads.astype(jnp.int32).T
-    w32 = hap_wins.astype(jnp.int32).T
-    lens2 = rlens.astype(jnp.int32)[None, :]
-
-    kernel = functools.partial(_kernel, band=band, L=L,
-                               max_del_run=min(max_del_run, band))
-    grid = (B // tile,)
-    out_shapes = [jax.ShapeDtypeStruct((1, B), jnp.float32)] + \
-        [jax.ShapeDtypeStruct((1, B), jnp.int32)] * 6
-    out_specs = [pl.BlockSpec((1, tile), lambda i: (0, i),
-                              memory_space=pltpu.VMEM)] * 7
+    if L >= MAX_LEN:
+        raise ValueError(f"read length {L} exceeds the kernel's 16-bit "
+                         f"payload fields (< {MAX_LEN})")
+    TB, num_warps = tile_for(band)
+    chunk = chunk_for(band)
+    pad = (-B) % TB
+    Bp = B + pad
+    r_t = jnp.pad(reads.astype(jnp.int8), ((0, pad), (0, 0)),
+                  constant_values=4).T
+    w_t = jnp.pad(hap_wins.astype(jnp.int8),
+                  ((0, pad), (0, L + band - hap_wins.shape[1])),
+                  constant_values=4).T
+    lens = jnp.pad(rlens.astype(jnp.int32), (0, pad))
+    kernel = functools.partial(_kernel, band=band, TB=TB, chunk=chunk)
+    out_shape = ([jax.ShapeDtypeStruct((Bp,), jnp.float32)]
+                 + [jax.ShapeDtypeStruct((Bp,), jnp.int32)] * 6)
+    if chunk < band:
+        out_shape += ([jax.ShapeDtypeStruct((band + 1, Bp), jnp.float32)]
+                      + [jax.ShapeDtypeStruct((band + 1, Bp), jnp.int32)] * 3)
     res = pl.pallas_call(
         kernel,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((5,), lambda i: (0,), memory_space=pltpu.SMEM),
-            pl.BlockSpec((L, tile), lambda i: (0, i), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, tile), lambda i: (0, i), memory_space=pltpu.VMEM),
-            pl.BlockSpec((L + band, tile), lambda i: (0, i),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=out_specs,
-        out_shape=out_shapes,
-    )(score_vec.astype(jnp.float32), r32, lens2, w32)
-    score, mism, ins, dele, clip, sp, ep = res
-    return dict(score=score[0], n_mism=mism[0], n_ins=ins[0],
-                n_del=dele[0], n_clip=clip[0], start_p=sp[0],
-                end_p=ep[0], valid=score[0] > NEG / 2)
+        grid=(Bp // TB,),
+        out_shape=out_shape,
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=num_warps,
+                                             num_stages=1),
+        interpret=interpret,
+        name="banded_align",
+    )(score_vec.astype(jnp.float32), r_t, lens, w_t)
+    score, mism, ins, dele, clip, sp, ep = (x[:B] for x in res[:7])
+    return dict(score=score, n_mism=mism, n_ins=ins, n_del=dele,
+                n_clip=clip, start_p=sp, end_p=ep, valid=score > NEG / 2)

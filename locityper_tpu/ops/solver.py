@@ -3,7 +3,7 @@
 This replaces the reference's thread-pool of sequential stochastic solvers
 (solvers/stoch.rs, solvers/solve.rs:969-1127) with a single jitted program
 that runs (genotype × attempt) simulated-annealing chains in parallel via
-nested vmap — the TPU-native counterpart of SURVEY.md §3.5's "thousands of
+nested vmap — the data-parallel counterpart of SURVEY.md §3.5's "thousands of
 independent chains, each doing ~120k sequential moves".
 
 Model recap (model/assgn.rs):
@@ -52,7 +52,7 @@ class SolverConfig:
     # per-step acceptance thinning.
     anneal_steps_b: int = 500
     move_thin: float = 0.3
-    # Pallas kernel depth-table height (ops/solver_pallas.py).  Depths
+    # Annealer kernel depth-table height (ops/solver_pallas.py).  Depths
     # above this clamp to the last row; the XLA engine uses DEPTH_CAP=256.
     d_tab: int = 64
     # Reference-greedy mode (stoch.rs:36-145): when greedy_sample > 0 the
@@ -144,10 +144,8 @@ def _read_windows(key, gt, mids, slots, pack_nwin, pack_regstart, wsize, tweak,
     R, K, _ = mids.shape
     P = gt.shape[0]
     t = jax.random.randint(key, (R, K, 2), 0, 2 * tweak + 1)
-    # Per-slot scalars selected by ploidy-unrolled masks: the former
-    # [R, K] hap gather (pack_nwin[gt[slots]]) lowered to per-element
-    # XLA gathers — ~0.15 s per 512-chain prepare at HLA shapes, the
-    # single largest stage-1 cost (BENCH_NOTES round 5 bisect).
+    # Per-slot scalars selected by ploidy-unrolled masks instead of an
+    # [R, K] hap gather (pack_nwin[gt[slots]]).
     n = jnp.zeros(mids.shape[:2], pack_nwin.dtype)
     reg = jnp.zeros(mids.shape[:2], pack_regstart.dtype)
     for s in range(P):
@@ -296,7 +294,7 @@ def _chain(key, probs, wins, vorder, vcount, nt_ixs, nt_count, bayes, win_gc,
 
 def _greedy_chain(key, probs, wins, vorder, vcount, nt_ixs, nt_count, bayes,
                   win_gc, win_weight, cfg: SolverConfig, random_init: bool):
-    """Reference Greedy solver (stoch.rs:36-145) as a TPU while-loop: per
+    """Reference Greedy solver (stoch.rs:36-145) as a device while-loop: per
     iteration sample `cfg.greedy_sample` non-trivial reads (with
     replacement — the reference samples without), take the single best
     improving reassignment over ALL candidates of the sampled reads, stop

@@ -1,13 +1,13 @@
-"""Batched-move annealing: the TPU-native read-assignment solver.
+"""Batched-move annealing: a data-parallel read-assignment solver.
 
 The sequential chain (ops/solver.py, mirroring stoch.rs) moves ONE read per
-step — scalar gathers/scatters that TPUs execute at ~ms/step under XLA.
+step — scalar gathers/scatters, one small device step each under XLA.
 This solver replaces it with *synchronous batched proposals*:
 
   per super-step:
     1. every read draws a random alternative candidate (vectorized);
     2. per-read deltas are computed against the CURRENT depth vector
-       (dense [R, K, 4] gathers — pure VPU work);
+       (dense [R, K, 4] gathers — pure vector work);
     3. each read accepts independently (Metropolis at the current
        temperature);
     4. all accepted moves apply at once; depth and likelihood are

@@ -1,20 +1,21 @@
-"""Multi-host execution: loci shard across hosts, chips shard within.
+"""Multi-host execution: loci shard across hosts, cards shard within.
 
 The workload is embarrassingly parallel at the locus level (the reference's
 outermost loop, genotype.rs:1278-1298), so the multi-host design keeps ALL
 cross-host traffic off the critical path:
 
-* within a host: the {read × gt} device mesh (parallel/mesh.py) shards
-  alignment and solving over the local chips via ICI collectives;
-* across hosts: loci partition round-robin by process index — no DCN
-  collectives at all.  Each process writes its own per-locus outputs into
-  the shared output directory (distinct subdirectories + success files, so
-  results merge trivially and reruns resume per locus).
+* within a host: ONE process owns all of the host's cards, and the
+  {read × gt} device mesh (parallel/mesh.py) shards alignment and solving
+  over them.  Several processes on one card fail: each JAX process
+  reserves most of a card's memory when it starts;
+* across hosts: loci partition round-robin by process index — no
+  cross-host collectives at all.  Each process writes its own per-locus
+  outputs into the shared output directory (distinct subdirectories +
+  success files, so results merge trivially and reruns resume per locus).
 
-`maybe_init_distributed` wires `jax.distributed` from the standard
-environment (JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES /
-JAX_PROCESS_ID, or any scheduler auto-detected by jax.distributed);
-single-process runs are untouched.
+`maybe_init_distributed` wires `jax.distributed` from the environment
+(JAX_COORDINATOR_ADDRESS, JAX_NUM_PROCESSES, JAX_PROCESS_ID — all three
+given explicitly); single-process runs are untouched.
 """
 from __future__ import annotations
 
@@ -54,7 +55,7 @@ def lpt_assign(costs: list, n_bins: int) -> list:
 
     Guarantees max_load <= (4/3 - 1/(3n)) * optimal — the classic LPT
     bound — so one expensive straggler locus can no longer serialize a
-    round-robin host while others idle (VERDICT r4 weak item 5; reference
+    round-robin host while others idle (reference
     outer loop: genotype.rs:1278-1298)."""
     order = sorted(range(len(costs)), key=lambda i: (-costs[i], i))
     loads = [0.0] * n_bins

@@ -130,8 +130,8 @@ _MURMUR3_MULT = np.uint32(0x85EBCA6B)
 def murmur3_mix32(x: np.ndarray) -> np.ndarray:
     """32-bit murmur3-style mix (kmers.rs:77-91).  Used for the recruitment
     minimizer space: with k ≤ 16 the canonical k-mer fits in 32 bits, which
-    keeps the whole recruitment index in native int32 on device (TPU has no
-    64-bit integer units; SURVEY.md §7 'device hash tables')."""
+    keeps the whole recruitment index in 32-bit words on device
+    (SURVEY.md §7 'device hash tables')."""
     x = (~x.astype(np.uint32))
     x ^= x >> np.uint32(16)
     with np.errstate(over="ignore"):

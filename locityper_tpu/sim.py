@@ -93,7 +93,7 @@ def simulate_structured_locus(rng: np.random.Generator, name: str = "locus",
                               haps_per_clade: int = 4,
                               clade_divergence: float = 0.02,
                               within_divergence: float = 0.002) -> SimLocus:
-    """Haplotype panel with realistic structure (VERDICT r4 items 1/6):
+    """Haplotype panel with realistic structure:
     `n_clades` distant clades (founders at `clade_divergence` from a common
     ancestor), each holding `haps_per_clade` near-identical haplotypes at
     `within_divergence` from the clade founder.  Models HLA-style panels
@@ -255,3 +255,60 @@ def simulate_single_reads(rng: np.random.Generator, seqs: list[np.ndarray],
             covered += L
             counter += 1
     return SimReads(reads, [], names, src, pos)
+
+
+def apply_errors_bulk(rng: np.random.Generator, frags: np.ndarray,
+                      errors: ErrorModel, out_len: int) -> np.ndarray:
+    """ErrorModel.apply on every row of `frags` [n, F] at once, each output
+    cut to `out_len` bases (rows that come out shorter are padded with
+    code 4; make F a little longer than out_len).  Same per-base events:
+    deletion | insertion-before | mismatch | match."""
+    n, F = frags.shape
+    ev = rng.random((n, F))
+    dele = ev < errors.deletion
+    ins = (~dele) & (ev < errors.deletion + errors.insertion)
+    mism = (~dele & ~ins) & (
+        ev < errors.deletion + errors.insertion + errors.mismatch)
+    base = np.where(mism, (frags + rng.integers(1, 4, (n, F))) % 4, frags)
+    width = np.where(dele, 0, np.where(ins, 2, 1))
+    pos = np.cumsum(width, axis=1) - width
+    out = np.full((n, 2 * F + 1), 4, np.int8)
+    rows = np.broadcast_to(np.arange(n)[:, None], (n, F))
+    ib = np.nonzero(ins)
+    out[ib[0], pos[ib]] = rng.integers(0, 4, ib[0].size)
+    kb = np.nonzero(~dele)
+    out[rows[kb], pos[kb] + ins[kb]] = base[kb]
+    return out[:, :out_len]
+
+
+def simulate_paired_reads_bulk(rng: np.random.Generator, seq: np.ndarray,
+                               depth: float = 30.0, read_len: int = 150,
+                               insert_mean: float = 400.0,
+                               insert_sd: float = 60.0,
+                               errors: ErrorModel | None = None,
+                               chunk: int = 100_000):
+    """simulate_paired_reads for one long sequence, vectorized: yields
+    (reads1 [n, read_len], reads2 [n, read_len]) int8 chunks of at most
+    `chunk` pairs.  For the off-target bulk of a simulated WGS sample."""
+    errors = errors or ErrorModel()
+    L = read_len
+    n_pairs = int(depth * seq.size / (2 * L) + 0.5)
+    F = L + 16
+    padded = np.concatenate([seq, np.full(F, 4, seq.dtype)])
+    for st in range(0, n_pairs, chunk):
+        n = min(chunk, n_pairs - st)
+        insert = np.clip(np.rint(rng.normal(insert_mean, insert_sd, n)),
+                         L, seq.size).astype(np.int64)
+        start = (rng.random(n) * (seq.size - insert + 1)).astype(np.int64)
+        off = np.arange(F)
+        frag1 = padded[start[:, None] + off]
+        # Mate 2: reverse complement of the fragment's last read_len
+        # bases, extended past them for the error model's slack.
+        end = start + insert
+        idx2 = np.maximum(end[:, None] - 1 - off, 0)
+        frag2 = np.where(padded[idx2] < 4, 3 - padded[idx2], 4)
+        r1 = apply_errors_bulk(rng, frag1, errors, L)
+        r2 = apply_errors_bulk(rng, frag2.astype(np.int8), errors, L)
+        swap = rng.random(n) < 0.5
+        r1[swap], r2[swap] = r2[swap], r1[swap].copy()
+        yield r1, r2

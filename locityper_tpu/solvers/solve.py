@@ -42,12 +42,12 @@ def _parse_size(s: str) -> int:
 class Stage:
     """One solver stage (solve.rs:138-203): SOLVER[:param=value,...].
 
-    engine "auto" (default) resolves to the Pallas chains-in-lanes kernel
-    on TPU (ops/solver_pallas.py, 7.6 ms/gt measured — 27× the XLA chain)
-    and the XLA sequential chain on CPU (Pallas interpret mode has no PRNG).
-    Explicit options: "pallas", "seq" (reference semantics, 203 ms/gt on
-    v5e), "batched" (synchronous batched moves).  All three provably reach
-    the exact ILP optimum (tests/test_ilp.py).
+    engine "auto" (default) resolves by ops/device.kernel_route: the
+    Pallas annealer kernel (ops/solver_pallas.py) on the GPU, the XLA
+    sequential chain on the CPU.  Explicit options: "pallas", "seq"
+    (reference semantics), "batched" (synchronous batched moves).  All
+    three reach the exact ILP optimum (tests/test_ilp.py,
+    tests/test_solver_pallas.py).
     """
     kind: str                    # "greedy" | "anneal"
     in_size: int = 1000
@@ -63,7 +63,7 @@ class Stage:
     plato: int = 100
     # init=prev: seed every chain from the previous stage's best
     # assignment instead of random init (pallas engine; an optimization
-    # beyond the reference — off by default, A/B'd on chip).
+    # beyond the reference — off by default).
     seed_prev: bool = False
 
     @classmethod
@@ -213,8 +213,20 @@ def run_filter(genotypes: np.ndarray, priors: np.ndarray,
     return select_by_scores(scores, filt_diff, out_size)
 
 
+def _resolve_engine(stage: Stage) -> str:
+    """Stage engine with "auto" resolved by ops/device.kernel_route.  On
+    the GPU, greedy stages run the kernel's polish walk rather than the
+    reference greedy: chip_smoke.py checks that its stage-1 survivor set
+    overlaps the greedy's as well as the greedy overlaps itself from seed
+    to seed."""
+    if stage.engine != "auto":
+        return stage.engine
+    from ..ops.device import kernel_route
+    return "pallas" if kernel_route() == "gpu" else "seq"
+
+
 def _stage_plato(stage: Stage) -> int:
-    """Plateau budget (in kernel steps) for the Pallas chains-in-lanes
+    """Plateau budget (in kernel steps) for the annealer kernel's
     walk.  Anneal stages: the reference's plato_size equals the polish
     budget (stoch.rs:164-167, the `p=` parameter sets both here).  Greedy
     stages: the reference counts ITERATIONS of `sample` examined reads
@@ -359,13 +371,13 @@ def _gt_chunks(total: int, cap: int, floor: int = 16) -> list:
 
 
 def _candidate_k_cap(tensors, ploidy: int) -> int | None:
-    """Static cap on live candidate slots for the Pallas solver's
+    """Static cap on live candidate slots for the annealer kernel's
     valid-first-permuted feeds: every read has at most `max_v` non-NEG
     slots per haplotype (host count over tensors.hap_prob — an upper
     bound on _gather_candidates' post-prob_diff valid set), so after the
     valid-first permutation all live candidates sit below
-    P*max_v + 1.  Slicing there shrinks the kernel's per-step candidate
-    loop and VMEM feed bit-identically (the PRNG stream is K-free).
+    P*max_v + 1.  Slicing there shrinks the kernel's candidate feeds
+    bit-identically (the random stream does not depend on K).
     Bucketed to {5, 9, 17} to bound compile shapes; None = no win."""
     from ..ops.solver import NEG
     k_full = ploidy * tensors.kh + 1
@@ -381,10 +393,9 @@ def _candidate_k_cap(tensors, ploidy: int) -> int | None:
 
 def _device_solver_args(tensors, pack, bayes, mesh):
     """The 9 array operands every stage call passes to the solver, made
-    device-resident ONCE: as numpy they take the slow implicit-H2D path
-    on EVERY chunked stage call (BENCH_NOTES round 2 — ~100 MB/call for
-    a 100-locus combined panel).  Mesh runs keep numpy: arrays committed
-    to one device conflict with shard_map placement."""
+    device-resident ONCE instead of uploaded again with every chunked
+    stage call.  Mesh runs keep numpy: arrays committed to one device
+    conflict with shard_map placement."""
     import jax
     args = (tensors.hap_prob, tensors.hap_mid, tensors.unmapped_prob,
             pack.n_windows, pack.reg_start, pack.contig_len,
@@ -405,7 +416,7 @@ def solve_locus(tensors: LocusTensors, pack: ContigInfoPack, bg_distr,
     sol_writer: optional text stream receiving per-stage scores
     ("stage\\tgenotype\\tscore", counterpart of sol.csv.gz, solve.rs:918-919).
     mesh: optional jax.sharding.Mesh — the stage-0 filter runs read-sharded
-    (psum over ICI) and every solver stage runs genotype-sharded over the
+    (psum across devices) and every solver stage runs genotype-sharded over the
     full mesh (the reference's solver worker pool, solve.rs:969-1127).
     """
     import jax
@@ -449,18 +460,7 @@ def solve_locus(tensors: LocusTensors, pack: ContigInfoPack, bg_distr,
             continue
         t0 = time.monotonic()
         random_init = stage.kind == "anneal"
-        engine = stage.engine
-        if engine == "auto":
-            engine = "pallas" if jax.default_backend() != "cpu" else "seq"
-            # Greedy stages: the TPU default stays the Pallas fixed-length
-            # polish walk.  Measured on-chip at stage-1 scale (5050
-            # genotypes, tests/test_solver_pallas.py): the walk's survivor
-            # set overlaps the reference greedy's (stoch.rs:36-145,
-            # engine=seq — chip-capable XLA while-loop) 19/20 — exactly
-            # the reference greedy's own seed-to-seed stability — with the
-            # true genotype always retained; routing greedy to the XLA
-            # chain cost 0.55s->2.5s solve per panel (BENCH_NOTES r3) for
-            # no measurable selection difference.
+        engine = _resolve_engine(stage)
         cfg = SolverConfig(
             anneal_steps=stage.anneal_steps,
             polish_steps=stage.polish_steps,
@@ -532,11 +532,9 @@ def solve_locus(tensors: LocusTensors, pack: ContigInfoPack, bg_distr,
                                                     stage_key, gts)
             else:
                 liks, assgns = run_solver(stage_key, gts, init_)
-            # Final stage: one packed D2H for both outputs (each fetch
-            # costs a flat relay round-trip — BENCH_NOTES round 2).
-            # Non-final stages only rank by likelihood, so the [G, A, R]
-            # assignments stay on device (at HLA scale R is thousands —
-            # the packed fetch would move ~40 MB/locus for nothing),
+            # Final stage: one packed D2H for both outputs.  Non-final
+            # stages only rank by likelihood, so the [G, A, R]
+            # assignments stay on device (at HLA scale R is thousands),
             # unless the next stage seeds from them.
             final_stage = out_size is None
             out_dev = (_pack_solver_out(liks, assgns)
@@ -594,7 +592,7 @@ def solve_locus(tensors: LocusTensors, pack: ContigInfoPack, bg_distr,
 
 
 # ---------------------------------------------------------------------------
-# Multi-locus panel solving (VERDICT r2: solve across loci in one program)
+# Multi-locus panel solving (solve across loci in one program)
 # ---------------------------------------------------------------------------
 
 @dataclass
@@ -661,10 +659,9 @@ def _combine_panel(items):
 
 
 def _default_gt_batch() -> int:
-    """Genotype-chunk size per solver kernel call.  Overridable via
-    LOCITYPER_GT_BATCH for chip A/Bs: at HLA scale stage 1 is bound by
-    per-dispatch overhead (49 calls x ~0.2 s at 512), not kernel steps
-    (BENCH_NOTES round 5)."""
+    """Genotype-chunk size per solver kernel call (overridable via
+    LOCITYPER_GT_BATCH).  Chosen on earlier hardware; not yet measured
+    on the GPU."""
     import os
     try:
         return int(os.environ.get("LOCITYPER_GT_BATCH", "512"))
@@ -677,15 +674,16 @@ def solve_panel(items: list, bg_distr, params: Params, scheme: Scheme, key,
     """Multi-stage solve of SEVERAL loci in shared device programs: every
     stage runs the combined genotype list of all loci through one kernel
     call per chunk, amortizing the annealer's sequential-step latency
-    across the panel (the chains-in-lanes kernel is latency-bound, not
-    lane-bound, at small per-locus genotype counts).  Per-locus semantics
+    across the panel (the annealer is bound by the latency of its
+    sequential steps, not by the number of chains, at small per-locus
+    genotype counts).  Per-locus semantics
     — stage-0 filter, stage skipping, culling, ranking — stay independent
     and match `solve_locus` (tests/test_panel.py).
 
     Loci whose contigs were windowed at different sizes (different read
     lengths at preproc time) cannot share one combined program — they are
     bucketed by window size and each bucket solved in its own combined
-    program (VERDICT r2 weak #6; single-bucket panels are unaffected).
+    program (single-bucket panels are unaffected).
 
     Returns list[Genotyping] in `items` order.
     """
@@ -762,9 +760,7 @@ def _solve_panel_group(items: list, bg_distr, params: Params, scheme: Scheme,
             continue
         t0 = time.monotonic()
         random_init = stage.kind == "anneal"
-        engine = stage.engine
-        if engine == "auto":
-            engine = "pallas" if jax.default_backend() != "cpu" else "seq"
+        engine = _resolve_engine(stage)
         cfg = SolverConfig(
             anneal_steps=stage.anneal_steps,
             polish_steps=stage.polish_steps,
@@ -825,8 +821,7 @@ def _solve_panel_group(items: list, bg_distr, params: Params, scheme: Scheme,
         # Two-phase chunk pipeline: dispatch EVERY chunk (the device
         # queues them back to back) with an async D2H prefetch, then
         # process in order — no per-chunk blocking round trip, and the
-        # pow2 tail split stops a 288-gt tail from padding to 512
-        # (+14 kernel blocks at 8 attempts; BENCH_NOTES round 4).
+        # pow2 tail split stops a 288-gt tail from padding to 512.
         for st, take, size in _gt_chunks(all_gts.shape[0], gt_batch, floor):
             chunk_rows = rows[st:st + take]
             gts = all_gts[st:st + take]

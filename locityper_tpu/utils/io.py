@@ -23,7 +23,7 @@ def prefetch_iter(gen, depth: int = 2):
     """Runs a generator in a background thread, keeping up to `depth`
     items ready: decompression + native parsing release the GIL, so the
     producer genuinely overlaps the consumer's scatter/pack/dispatch work
-    (the recruitment host legs — BENCH_NOTES round 4).  Exceptions
+    (the recruitment host legs).  Exceptions
     (e.g. fastx.MaxLenExceeded) re-raise in the consumer."""
     import queue
     import threading

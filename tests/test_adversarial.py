@@ -1,4 +1,4 @@
-"""Adversarial correctness oracles (VERDICT r4 item 6): the simulator's
+"""Adversarial correctness oracles: the simulator's
 hard cases — near-identical haplotype clusters, paralog decoys sharing
 95-99% identical sequence (the CYP2D6/CYP2D7 stress, BASELINE config 3),
 and GC-biased depth that makes the 101-GC-bin depth model load-bearing

@@ -162,7 +162,7 @@ def test_genotype_cli_on_bam(tmp_path):
 def test_assignment_bam_matches_sam(tmp_path):
     """model/sam.py write_sam with a .bam path writes real BGZF BAM whose
     records (name/flag/pos/mapq/CIGAR/seq/tags) match the SAM.gz twin
-    (VERDICT r2 missing #5: the reference's model/bam.rs emits BAM)."""
+    (the reference's model/bam.rs emits BAM)."""
     import gzip
     import struct
 

@@ -1,7 +1,7 @@
 """CRAI indexed CRAM access (seq/crai.py): index build/load round-trip,
 region fetch vs full scan, unplaced tail, and indexed fetch-region
 recruitment from CRAM and from multiple indexed BAMs in the genotype CLI
-(VERDICT r2 item 5; reference fastx.rs:586-887, genotype.rs:792-870)."""
+(reference fastx.rs:586-887, genotype.rs:792-870)."""
 import numpy as np
 import pytest
 

@@ -213,7 +213,7 @@ class TestBamLayerIntegration:
 
 
 def test_genotype_read_iter_mixed_inputs(tmp_path):
-    """VERDICT item 8: -I in-lists freely mixing CRAM + multiple BAMs +
+    """-I in-lists freely mixing CRAM + multiple BAMs +
     FASTQ, every file an independent read set."""
     from locityper_tpu.commands.genotype import _read_iter
 

@@ -4,7 +4,7 @@ Parity model: the pure-Python fallback in seq/dist.py implements the same
 algorithm as the native kernels (LCSk++ event sweep, smart gap fill, Gotoh
 affine DP); these tests enforce bit-identical output between the two and
 check the reference invariants (dist.rs:238-241 full coverage;
-wfa.rs scoring model) plus the VERDICT round-1 "done" criterion: full-length
+wfa.rs scoring model) plus a "done" criterion: full-length
 PAFs for haplotype pairs containing multi-kb indels.
 """
 import numpy as np
@@ -86,7 +86,7 @@ class TestScoring:
 
 
 class TestStructuralVariants:
-    """VERDICT item 3 'done' criterion: 1-10 kb indels stay in-band."""
+    """'Done' criterion: 1-10 kb indels stay in-band."""
 
     @pytest.mark.parametrize("del_len,ins_len", [(1000, 0), (0, 2500),
                                                  (10000, 1500)])

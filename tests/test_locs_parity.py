@@ -1,5 +1,5 @@
 """Vectorized build_all_alignments must be bit-identical to the readable
-per-read oracle (build_all_alignments_obj) — guards VERDICT r1 item 1's
+per-read oracle (build_all_alignments_obj) — guards the
 array-native rewrite of the post-alignment phase (locs.rs:736-1004)."""
 import numpy as np
 import pytest

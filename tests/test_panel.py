@@ -92,7 +92,7 @@ def test_panel_genotyping(panel):
 def test_panel_batched_equals_per_locus(panel):
     """Multi-locus batched alignment (build_all_alignments_panel) must be
     bit-identical to per-locus build_all_alignments — same jobs, same
-    kernel, shared L bucket (VERDICT round-2 item 5)."""
+    kernel, shared L bucket."""
     from locityper_tpu.bg.err_prof import EditDistCache, EditThresh
     from locityper_tpu.model import Params
     from locityper_tpu.model.locs import (build_all_alignments,
@@ -283,7 +283,7 @@ def test_genotype_panel_out_sams_and_multistage(panel, tmp_path):
 
 def test_solve_panel_mixed_window_sizes(panel):
     """Loci windowed at different sizes must flow through solve_panel via
-    per-size bucketed programs (VERDICT r2 weak #6: previously an assert
+    per-size bucketed programs (previously an assert
     that died into the per-locus fallback), matching per-locus solve_locus
     calls."""
     import jax

@@ -1,4 +1,4 @@
-"""Arbitrary-ploidy genotyping (VERDICT r2 missing #1): the reference
+"""Arbitrary-ploidy genotyping: the reference
 enumerates genotypes for any ploidy (genotype.rs:1077-1108 via
 ext/vec.rs:293-339).  The device tensors scale as K = P·Kh + 1 candidates
 and W = 2 + P·max_windows windows."""

@@ -1,5 +1,5 @@
 """Reads longer than the historical 192 bp batch width must never be
-clipped (VERDICT r2 weak #1).  The reference recruiter always sees full
+clipped.  The reference recruiter always sees full
 sequences (recruit.rs:852-932); the fast native-parser path sizes the
 batch width from the input and restarts if a longer read appears
 mid-stream."""
@@ -133,7 +133,7 @@ def test_fast_path_restarts_on_midstream_long_read(world300):
 
 def test_fast_path_mesh_equals_single_device(world300, monkeypatch):
     """recruit_reads_fast shards batches over the local mesh when several
-    devices are attached (VERDICT r2 item 3); decisions must be identical
+    devices are attached; decisions must be identical
     to the single-device kernel path."""
     import jax
 

@@ -308,34 +308,6 @@ class TestDeviceLongRecruit:
         assert 0 < n_hit < len(mix)
 
 
-@pytest.mark.skipif(jax.default_backend() == "cpu",
-                    reason="Pallas hash front end needs TPU hardware")
-class TestPallasHashFrontEnd:
-    """The fused Pallas hash+minimizer-mask kernel must be bit-exact vs
-    the XLA fusion ON THE CHIP (run with LOCITYPER_TEST_TPU=1; Mosaic
-    miscompiles unsigned compares and unaligned lane slices silently —
-    BENCH_NOTES round 2)."""
-
-    @pytest.mark.parametrize("L", [152, 192, 256])
-    def test_bit_exact_vs_xla(self, L):
-        import jax.numpy as jnp
-
-        from locityper_tpu.ops import recruit as R
-
-        rng = np.random.default_rng(L)
-        B = 2048
-        reads = rng.integers(0, 5, (B, L)).astype(np.int8)   # incl. Ns
-        rd = jax.device_put(reads)
-        hp, fp, mp = [np.asarray(v) for v in R._hash_mask_pallas(rd, 15, 10)]
-        h, f = R._canonical_hashes(rd, 15)
-        m = R._minimizer_mask(h, 10)
-        hx = np.asarray((h ^ jnp.uint32(R.SIGN_BIT)).astype(jnp.int32))
-        np.testing.assert_array_equal(hp, hx)
-        np.testing.assert_array_equal(mp, np.asarray(m))
-        valid = hx != 0x7FFFFFFF
-        np.testing.assert_array_equal(fp[valid], np.asarray(f)[valid])
-
-
 def test_sharded_recruit_matches_single_device():
     """sharded_recruit_pairs over the virtual mesh must equal the
     single-device kernel decisions exactly (P1 as data parallelism)."""
@@ -477,45 +449,41 @@ class TestHashLookup:
         assert got.shape[0] == B
 
 
-class TestFusedFrontEnd:
-    """_front_compact_pallas (hash + minimizer mask + compaction in one
-    Mosaic kernel) must match the XLA argsort path bit-for-bit on the
-    surviving entries, including truncation order; packed decisions must
-    round-trip (round 4)."""
+class TestFrontEnd:
+    """Minimizer compaction (_compact_minimizers) keeps the FIRST S
+    minimizer positions of each read in position order, including when it
+    truncates, against a numpy reference; packed decisions must
+    round-trip."""
 
-    def test_compaction_matches_argsort(self):
+    @pytest.mark.parametrize("B,L,S_override,n_frac", [
+        (64, 152, None, 0.0),
+        (64, 152, 8, 0.0),        # truncating
+        (32, 251, 16, 0.0),       # truncating, odd length
+        (64, 64, None, 0.1),      # with Ns
+    ])
+    def test_compaction_keeps_first_minimizers(self, B, L, S_override,
+                                               n_frac):
         import jax.numpy as jnp
-        from jax.experimental.pallas import tpu as pltpu
         from locityper_tpu.ops import recruit as R
-        rng = np.random.default_rng(1)
+        rng = np.random.default_rng(L + (S_override or 0))
         k, w = 15, 10
-        for B, L, S_override, n_frac in [(256, 152, None, 0.0),
-                                         (256, 152, 8, 0.0),    # truncating
-                                         (512, 251, 16, 0.0),   # truncating
-                                         (256, 64, None, 0.1)]:  # with Ns
-            reads = rng.integers(0, 4, size=(B, L)).astype(np.int8)
-            if n_frac:
-                reads[rng.random((B, L)) < n_frac] = 4
-            reads[:8, 40:60] = 4
-            P = L - k + 1
-            S = S_override or min(P, max(4 * (P // (w + 1)) + 16, 16))
-            h, is_fw = R._canonical_hashes(jnp.asarray(reads), k)
-            mask = R._minimizer_mask(h, w)
-            hs = (h ^ jnp.uint32(R.SIGN_BIT)).astype(jnp.int32)
-            total_x = np.asarray(jnp.sum(mask, axis=1)).astype(np.int32)
-            order = jnp.argsort(~mask, axis=1, stable=True)[:, :S]
-            hx = np.asarray(jnp.take_along_axis(hs, order, axis=1))
-            fx = np.asarray(jnp.take_along_axis(is_fw, order, axis=1))
-            mx = np.asarray(jnp.take_along_axis(mask, order, axis=1))
-            with pltpu.force_tpu_interpret_mode():
-                hc, fc, mc, tot = R._front_compact_pallas(
-                    jnp.asarray(reads), k, w, S)
-            hc, fc, mc, tot = map(np.asarray, (hc, fc, mc, tot))
-            np.testing.assert_array_equal(mc, mx)
-            np.testing.assert_array_equal(tot, total_x)
-            np.testing.assert_array_equal(np.where(mc, hc, 0),
-                                          np.where(mx, hx, 0))
-            np.testing.assert_array_equal(fc & mc, fx & mx)
+        reads = rng.integers(0, 4, size=(B, L)).astype(np.int8)
+        if n_frac:
+            reads[rng.random((B, L)) < n_frac] = 4
+        reads[:8, 40:60] = 4
+        P = L - k + 1
+        S = S_override or R._compact_width(P, w)
+        hs, is_fw, mask = (np.asarray(x) for x in
+                           R._hash_mask(jnp.asarray(reads), k, w))
+        hc, fc, mc = (np.asarray(x) for x in R._compact_minimizers(
+            jnp.asarray(hs), jnp.asarray(is_fw), jnp.asarray(mask), S))
+        assert hc.shape == (B, S)
+        for b in range(B):
+            pos = np.nonzero(mask[b])[0][:S]
+            n = pos.size
+            assert mc[b, :n].all() and not mc[b, n:].any()
+            np.testing.assert_array_equal(hc[b, :n], hs[b, pos])
+            np.testing.assert_array_equal(fc[b, :n], is_fw[b, pos])
 
     def test_packed_decisions_roundtrip(self):
         import jax.numpy as jnp

@@ -1,25 +1,24 @@
-"""Pallas annealer kernel: engine equivalence + TPU-only dynamics checks.
+"""Annealer kernel (ops/solver_pallas.py): engine equivalence, dynamics
+and the in-kernel random numbers.
 
-CPU CI runs the deterministic paths (n_steps=0) through the interpreter —
-this exercises the kernel's data plumbing (candidate gathers, depth-table
-cache, final-likelihood recompute) at depths ABOVE the old 32-row table
-clamp.  The stochastic dynamics need hardware PRNG and run only on TPU
-(bench sessions); they check the exact ILP optimum and seed determinism.
+On the CPU the kernel runs in Pallas interpret mode.  Its random numbers
+are a counter-based hash, so interpret mode runs the same dynamics as the
+card: the ILP optimum and seed determinism are checked here too.
 """
 import numpy as np
 import pytest
 
 import jax
+import jax.numpy as jnp
 
 from locityper_tpu.model import Params
 from locityper_tpu.model.assgn import LocusTensors
 from locityper_tpu.model.windows import ContigInfoPack
 from locityper_tpu.mathx.distr import NBinom
+from locityper_tpu.ops import solver_pallas as SP
 from locityper_tpu.ops.solver import (SolverConfig, build_bayes_table,
                                       solve_genotypes)
 from locityper_tpu.ops.solver_pallas import solve_genotypes_pallas
-
-_ON_TPU = jax.default_backend() not in ("cpu",)
 
 
 def deep_problem(seed=0, n_reads=30, n_haps=3, kh=3):
@@ -49,15 +48,22 @@ def deep_problem(seed=0, n_reads=30, n_haps=3, kh=3):
     return tensors, pack, bayes, params
 
 
-def _run_pallas(key, gts, tensors, pack, bayes, cfg, **kw):
-    args = (tensors.hap_prob, tensors.hap_mid, tensors.unmapped_prob,
+def _args(tensors, pack, bayes):
+    return (tensors.hap_prob, tensors.hap_mid, tensors.unmapped_prob,
             pack.n_windows, pack.reg_start, pack.contig_len, pack.gc_at,
             pack.weight_at, bayes)
-    if _ON_TPU:
-        return solve_genotypes_pallas(key, gts, *args, cfg, **kw)
-    from jax.experimental.pallas import tpu as pltpu
-    with pltpu.force_tpu_interpret_mode():
-        return solve_genotypes_pallas(key, gts, *args, cfg, **kw)
+
+
+def _run_pallas(key, gts, tensors, pack, bayes, cfg, **kw):
+    return solve_genotypes_pallas(key, gts, *_args(tensors, pack, bayes),
+                                  cfg, interpret=True, **kw)
+
+
+def _cfg(params, pack, **kw):
+    return SolverConfig(depth_contrib=params.depth_contrib,
+                        aln_contrib=params.aln_contrib,
+                        prob_diff=params.prob_diff, tweak=0,
+                        window_size=pack.window_size, **kw)
 
 
 class TestHighDepthEquivalence:
@@ -120,18 +126,13 @@ class TestHighDepthEquivalence:
 class TestPlateauExit:
     def test_plato_while_loop_plumbing(self):
         """plato > 0 switches the kernel to the reference's plateau
-        semantics (stoch.rs:196-240) behind a while_loop.  The interpreter
-        stubs the PRNG to zeros, so from an argmax init with strict
-        improving-only polish acceptance the lane freezes and the block
-        exits early — the likelihood must equal the 0-step (init state)
-        likelihood, and the call must terminate far before n_steps."""
+        semantics (stoch.rs:196-240) behind a while_loop.  From an argmax
+        init, a polish-only walk accepts strictly improving moves only, so
+        the likelihood cannot fall below the init state's, and the chain
+        freezes (and the program exits) long before n_steps."""
         tensors, pack, bayes, params = deep_problem(0)
         gt = np.array([(0, 2)], np.int32)
-        cfg = SolverConfig(anneal_steps=0, polish_steps=0,
-                           depth_contrib=params.depth_contrib,
-                           aln_contrib=params.aln_contrib,
-                           prob_diff=params.prob_diff,
-                           tweak=0, window_size=pack.window_size)
+        cfg = _cfg(params, pack, anneal_steps=0, polish_steps=0)
         base, _ = _run_pallas(jax.random.PRNGKey(0), gt, tensors, pack,
                               bayes, cfg, n_attempts=1,
                               max_windows=pack.max_windows, n_steps=0,
@@ -142,9 +143,6 @@ class TestPlateauExit:
                              random_init=False, plato=25)
         base = float(np.asarray(base)[0, 0])
         got = float(np.asarray(got)[0, 0])
-        # Stubbed PRNG proposes the same (read, slot) move every step: it
-        # is either accepted once (improving) or never — then the plateau
-        # counter freezes the lane.  Likelihood stays >= the init state.
         assert np.isfinite(got) and got >= base - 1e-3
 
     def test_plato_disabled_when_too_large(self):
@@ -209,9 +207,8 @@ def test_stage_plato_mapping():
     assert _stage_plato(Stage.parse("anneal:n=3000,p=2000")) == 2000
 
 
-@pytest.mark.skipif(not _ON_TPU, reason="Pallas PRNG needs TPU hardware")
-class TestPallasDynamicsTPU:
-    """Promoted from extra/validate_pallas_solver.py (VERDICT r1 item 10)."""
+class TestDynamics:
+    """Real annealing dynamics in interpret mode (ILP: tests/test_ilp.py)."""
 
     def test_reaches_ilp_optimum(self):
         from test_ilp import small_problem
@@ -219,11 +216,7 @@ class TestPallasDynamicsTPU:
         tensors, pack, bayes, params = small_problem(0)
         gt = (0, 2)
         _, ilp_lik = solve_ilp(gt, tensors, pack, bayes, params)
-        cfg = SolverConfig(anneal_steps=4000, polish_steps=4000,
-                           depth_contrib=params.depth_contrib,
-                           aln_contrib=params.aln_contrib,
-                           prob_diff=params.prob_diff,
-                           tweak=0, window_size=pack.window_size)
+        cfg = _cfg(params, pack, anneal_steps=4000, polish_steps=4000)
         liks, _ = _run_pallas(jax.random.PRNGKey(0),
                               np.array([gt], np.int32), tensors, pack,
                               bayes, cfg, n_attempts=8,
@@ -236,104 +229,106 @@ class TestPallasDynamicsTPU:
         from test_ilp import small_problem
         tensors, pack, bayes, params = small_problem(1)
         gts = np.array([(0, 1), (0, 2)], np.int32)
-        cfg = SolverConfig(anneal_steps=2000, polish_steps=2000,
-                           depth_contrib=params.depth_contrib,
-                           aln_contrib=params.aln_contrib,
-                           prob_diff=params.prob_diff,
-                           tweak=0, window_size=pack.window_size)
+        cfg = _cfg(params, pack, anneal_steps=1000, polish_steps=1000)
+        kw = dict(n_attempts=4, max_windows=pack.max_windows)
         a, _ = _run_pallas(jax.random.PRNGKey(7), gts, tensors, pack, bayes,
-                           cfg, n_attempts=4, max_windows=pack.max_windows)
+                           cfg, **kw)
         b, _ = _run_pallas(jax.random.PRNGKey(7), gts, tensors, pack, bayes,
-                           cfg, n_attempts=4, max_windows=pack.max_windows)
+                           cfg, **kw)
+        c, _ = _run_pallas(jax.random.PRNGKey(8), gts, tensors, pack, bayes,
+                           cfg, **kw)
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+        assert not np.array_equal(np.asarray(a), np.asarray(c))
+
+    def test_chain_padding_dropped(self):
+        """Chains are padded to the program width (32): 3 genotypes x 3
+        attempts = 9 chains come back as [3, 3], the same as the first
+        rows of a wider call."""
+        from test_ilp import small_problem
+        tensors, pack, bayes, params = small_problem(2)
+        gts = np.array([(0, 1), (0, 2), (1, 2)], np.int32)
+        cfg = _cfg(params, pack, anneal_steps=0, polish_steps=0)
+        liks, assgn = _run_pallas(jax.random.PRNGKey(3), gts, tensors, pack,
+                                  bayes, cfg, n_attempts=3,
+                                  max_windows=pack.max_windows,
+                                  random_init=False)
+        assert liks.shape == (3, 3)
+        assert assgn.shape == (3, 3, tensors.hap_prob.shape[1])
+        # Argmax init, 0 steps, no tweak: every attempt is the same state.
+        np.testing.assert_allclose(np.asarray(liks),
+                                   np.asarray(liks)[:, :1].repeat(3, 1),
+                                   atol=1e-4)
 
 
-@pytest.mark.skipif(not _ON_TPU, reason="stochastic dynamics need TPU PRNG")
-def test_stage1_survivors_greedy_vs_polish_at_scale():
-    """VERDICT r2 item 4, measured on-chip at stage-1 scale (5050
-    genotypes): the Pallas polish walk's survivor set must overlap the
-    reference greedy's (stoch.rs:36-145) at least as well as the greedy
-    overlaps ITSELF across seeds — measured 19/20 for both comparisons
-    (greedy(11) vs greedy(12/13): 19/20; polish vs greedy: 19/20) — and
-    both must retain the true genotype.  Exact set equality is
-    unattainable even greedy-vs-greedy (the rank-20 boundary member is
-    seed-dependent), so the Pallas walk remains the TPU default for
-    greedy stages (solvers/solve.py) with this test as the evidence."""
-    from locityper_tpu import mathx
-    from locityper_tpu.solvers.solve import (Prediction, discard_improbable,
-                                             run_filter)
+class TestRandomBits:
+    def _draws(self, n_chains=64, n_steps=512, draw=0):
+        seed = jnp.uint32(12345)
+        chain = jnp.arange(n_chains, dtype=jnp.uint32)[:, None]
+        step = jnp.arange(n_steps, dtype=jnp.uint32)[None, :]
+        return SP.random_bits(seed, chain, step, draw)
 
-    rng = np.random.default_rng(3)
-    n_haps, n_reads, kh = 100, 160, 4
-    # Reads "come from" haps 7 and 23: those columns score high.
-    hap_prob = rng.normal(-12.0, 1.5,
-                          (n_haps, n_reads, kh)).astype(np.float32)
-    src = np.where(rng.random(n_reads) < 0.5, 7, 23)
-    for r in range(n_reads):
-        hap_prob[src[r], r, 0] = rng.normal(-2.0, 0.3)
-    hap_prob[rng.random((n_haps, n_reads, kh)) < 0.3] = -1e30
-    mid = rng.integers(360, 1200, (n_haps, n_reads, kh, 2)).astype(np.int32)
-    unm = np.full(n_reads, -25.0, np.float32)
-    tensors = LocusTensors(hap_prob, mid, unm, n_haps, n_reads, kh)
-    hap_len = 1600
-    window = 100
-    pack = ContigInfoPack(
-        n_haps=n_haps, max_len=hap_len, max_windows=16,
-        n_windows=np.full(n_haps, 12, np.int32),
-        reg_start=np.full(n_haps, 200, np.int32),
-        contig_len=np.full(n_haps, hap_len, np.int32),
-        window_size=window,
-        gc_at=rng.integers(35, 60, (n_haps, hap_len)).astype(np.int32),
-        weight_at=np.ones((n_haps, hap_len), np.float32))
-    bayes = build_bayes_table([NBinom(4.0, 0.45)] * 101, [0.3, 2.0, 3.0],
-                              2.0)
-    gts = np.array([(a, b) for a in range(n_haps)
-                    for b in range(a, n_haps)], np.int32)
-    assert len(gts) == 5050
-    priors = np.zeros(len(gts))
-    best_aln = np.maximum(hap_prob.max(axis=2), unm[None, :])
-    ixs = run_filter(gts, priors, best_aln, 50.0, 5000)
+    def test_bounds(self):
+        bits = self._draws()
+        u = np.asarray(SP.uniform01(bits))
+        assert u.min() >= 0.0 and u.max() < 1.0
+        bound = jnp.full(bits.shape, 7, jnp.int32)
+        k = np.asarray(SP.randint(bits, bound))
+        assert k.min() == 0 and k.max() == 6
 
-    cfg_g = SolverConfig(tweak=0, window_size=window, greedy_sample=10,
-                         plato_size=100)
-    cfg_p = SolverConfig(tweak=0, window_size=window, anneal_steps=0,
-                         polish_steps=8000)
+    def test_uniform(self):
+        """Chi-square over 16 bins of 32768 draws, and the three draws of
+        a step are not the same numbers."""
+        u = np.asarray(SP.uniform01(self._draws())).ravel()
+        counts = np.bincount((u * 16).astype(int), minlength=16)
+        expected = u.size / 16
+        chi2 = float(np.sum((counts - expected) ** 2 / expected))
+        assert chi2 < 40.0, chi2          # 15 dof: p ~ 5e-4
+        assert abs(float(u.mean()) - 0.5) < 0.01
+        u1 = np.asarray(SP.uniform01(self._draws(draw=1))).ravel()
+        assert abs(float(np.corrcoef(u, u1)[0, 1])) < 0.05
 
-    def survivors(engine_fn, cfg, seed=11, chunk=1024):
-        key = jax.random.PRNGKey(seed)
-        preds = {}
-        for s in range(0, ixs.size, chunk):
-            sub = ixs[s:s + chunk]
-            liks, _ = engine_fn(jax.random.fold_in(key, s), gts[sub], cfg)
-            liks = np.asarray(liks, np.float64)
-            for i, ix in enumerate(sub):
-                m, v = mathx.mean_variance(liks[i])
-                preds[int(ix)] = Prediction(m, v, liks.shape[1])
-        return set(discard_improbable(ixs, preds, gts, 0.01, 20).tolist())
 
-    args = (tensors.hap_prob, tensors.hap_mid, tensors.unmapped_prob,
-            pack.n_windows, pack.reg_start, pack.contig_len, pack.gc_at,
-            pack.weight_at, bayes)
+class TestKernelPlumbing:
+    @pytest.mark.parametrize("plato", [0, 100])
+    def test_lowers_for_cuda(self, plato):
+        """The kernel lowers to Triton IR for a CUDA target, with and
+        without the plateau exit loop."""
+        from jax.export import DisabledSafetyCheck, export
+        from test_ilp import small_problem
+        tensors, pack, bayes, params = small_problem(0)
+        cfg = _cfg(params, pack)
+        f = jax.jit(lambda k, g, *a: solve_genotypes_pallas(
+            k, g, *a, cfg, n_attempts=4, max_windows=pack.max_windows,
+            plato=plato))
+        exp = export(f, platforms=["cuda"], disabled_checks=[
+            DisabledSafetyCheck.custom_call("__gpu$xla.gpu.triton")])(
+            jax.random.PRNGKey(0), np.array([(0, 1), (0, 2)], np.int32),
+            *_args(tensors, pack, bayes))
+        assert "anneal_chains" in exp.mlir_module()
 
-    def greedy(k, g, cfg):
-        return solve_genotypes(k, g, *args, cfg, n_attempts=1,
-                               max_windows=pack.max_windows,
-                               random_init=False)
+    def test_auto_engine_follows_route(self, monkeypatch):
+        from locityper_tpu.ops import device
+        from locityper_tpu.solvers.solve import Stage, _resolve_engine
+        monkeypatch.setattr(device, "kernel_route", lambda: "gpu")
+        assert _resolve_engine(Stage(kind="anneal")) == "pallas"
+        monkeypatch.setattr(device, "kernel_route", lambda: "xla")
+        assert _resolve_engine(Stage(kind="anneal")) == "seq"
+        assert _resolve_engine(Stage(kind="anneal",
+                                     engine="batched")) == "batched"
 
-    def polish(k, g, cfg):
-        return solve_genotypes_pallas(k, g, *args, cfg, n_attempts=1,
-                                      max_windows=pack.max_windows,
-                                      n_steps=cfg.polish_steps,
-                                      random_init=False)
 
-    s_greedy = survivors(greedy, cfg_g)
-    s_polish = survivors(polish, cfg_p)
-    true_ix = int(np.nonzero((gts[:, 0] == 7) & (gts[:, 1] == 23))[0][0])
-    assert true_ix in s_greedy and true_ix in s_polish
-    # Seed-to-seed baseline of the reference greedy itself.
-    s_greedy2 = survivors(greedy, cfg_g, seed=12)
-    base = len(s_greedy & s_greedy2)
-    cross = len(s_greedy & s_polish)
-    assert base >= 18, (sorted(s_greedy), sorted(s_greedy2))
-    assert cross >= min(base, 19) - 1, \
-        (cross, base, sorted(s_greedy), sorted(s_polish))
+@pytest.mark.gpu
+def test_kernel_on_card():
+    """Compiled for the card: the ILP optimum (run with
+    LOCITYPER_TEST_GPU=1 on a GPU machine)."""
+    from test_ilp import small_problem
+    from locityper_tpu.solvers.ilp import solve_ilp
+    tensors, pack, bayes, params = small_problem(0)
+    _, ilp_lik = solve_ilp((0, 2), tensors, pack, bayes, params)
+    cfg = _cfg(params, pack, anneal_steps=4000, polish_steps=4000)
+    liks, _ = solve_genotypes_pallas(
+        jax.random.PRNGKey(0), np.array([(0, 2)], np.int32),
+        *_args(tensors, pack, bayes), cfg, n_attempts=8,
+        max_windows=pack.max_windows)
+    assert float(np.max(np.asarray(liks))) == pytest.approx(ilp_lik,
+                                                             abs=0.05)

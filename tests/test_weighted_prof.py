@@ -1,4 +1,4 @@
-"""Region-weight-aware alignment probabilities (VERDICT r2 item 8).
+"""Region-weight-aware alignment probabilities.
 
 Reference semantics: model/windows.rs:507-575 `weighted_aln_prob` — each
 CIGAR op contributes weight(ref position)·ln p(op); the sum is renormalized
